@@ -1,5 +1,5 @@
 #!/bin/sh
-# CI benchmark + publish pipeline — the raisin-tpu equivalent of the
+# CI benchmark + publish pipeline — the raisin-jax equivalent of the
 # reference's Travis flow (/root/reference/.travis.yml:19-29), which runs
 # the full Canterbury benchmark inside Docker (Dockerfile:19-20 fetches the
 # corpus) and deploys the generated index.html to gh-pages.
@@ -31,8 +31,8 @@ import os
 import sys
 
 sys.path.insert(0, os.getcwd())
-from raisin_tpu.engine.benchmark import benchmark_suite
-from raisin_tpu.utils.corpus import write_corpus
+from raisin_jax.engine.benchmark import benchmark_suite
+from raisin_jax.utils.corpus import write_corpus
 
 out, scale = sys.argv[1], float(sys.argv[2])
 corpus_dir = os.path.join(out, "corpus")

@@ -13,7 +13,7 @@ from bench import make_corpus
 def main():
     import jax
 
-    from raisin_tpu.parallel.blocks import compress_container, decompress_container
+    from raisin_jax.parallel.blocks import compress_container, decompress_container
 
     print("backend:", jax.default_backend(), flush=True)
     sizes = [int(s) for s in os.environ.get("MB", "4,32").split(",")]

@@ -28,7 +28,6 @@ def main() -> None:
         sys.argv[4],
     )
     os.environ["JAX_PLATFORMS"] = "cpu"
-    os.environ["RAISIN_TPU_PLATFORM"] = "cpu"
     os.environ["XLA_FLAGS"] = (
         os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=4"
     )
@@ -38,8 +37,8 @@ def main() -> None:
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
 
-    from raisin_tpu.parallel import blocks as blk
-    from raisin_tpu.parallel import multihost
+    from raisin_jax.parallel import blocks as blk
+    from raisin_jax.parallel import multihost
 
     multihost.initialize(f"localhost:{port}", n, pid)
     assert jax.process_count() == n, jax.process_count()

@@ -29,8 +29,8 @@ def worker(n: int, mb: float, block: int, iters: int) -> None:
 
     sys.path.insert(0, REPO)
     from bench import make_corpus
-    from raisin_tpu.parallel.blocks import compress_container, decompress_container
-    from raisin_tpu.parallel.mesh import data_mesh
+    from raisin_jax.parallel.blocks import compress_container, decompress_container
+    from raisin_jax.parallel.mesh import data_mesh
 
     data = make_corpus(int(mb * (1 << 20)))
     # n=1 runs the SAME shard_map program on a 1-device mesh, so speedups
@@ -77,7 +77,7 @@ def main() -> None:
     rows = []
     for n in [int(x) for x in args.devices.split(",")]:
         env = dict(os.environ)
-        env["RAISIN_TPU_PLATFORM"] = "cpu"
+        env["JAX_PLATFORMS"] = "cpu"
         env["XLA_FLAGS"] = (
             env.get("XLA_FLAGS", "") + f" --xla_force_host_platform_device_count={max(n, 1)}"
         ).strip()
@@ -112,7 +112,7 @@ def main() -> None:
         "compare like with like. Virtual devices",
         "(`--xla_force_host_platform_device_count`) run the same partitioned",
         "HLO and collectives as real chips; absolute MB/s is CPU-bound and",
-        "NOT the per-chip TPU number (see BENCH_r*.json for that).",
+        "NOT a per-device GPU number.",
         "",
         f"This host has {ncores} physical cores. Rows with devices <= cores are",
         "pinned one-core-per-device (taskset) and measure real parallel",

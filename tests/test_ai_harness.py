@@ -4,7 +4,7 @@ import json
 
 import pytest
 
-from raisin_tpu.ai import (
+from raisin_jax.ai import (
     AlgorithmPicker,
     benchmark_files,
     entropy_nats,
@@ -52,7 +52,7 @@ def test_harness_and_picker(tmp_path):
 
 
 def test_experimental_variants_roundtrip():
-    from raisin_tpu.formats import arithmetic_experimental as ax
+    from raisin_jax.formats import arithmetic_experimental as ax
 
     for data in [b"", b"Hello world!", bytes(range(100)) * 2]:
         assert ax.big_decompress(ax.big_compress(data)) == data

@@ -1,6 +1,6 @@
 import pytest
 
-from raisin_tpu.formats import arithmetic_ref as ar
+from raisin_jax.formats import arithmetic_ref as ar
 
 from fixtures import HELLO, ABC, VERSE, random_bytes, random_text
 

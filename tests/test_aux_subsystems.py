@@ -5,8 +5,8 @@ import os
 import jax
 import pytest
 
-from raisin_tpu.utils.profiling import StageTimer, trace
-from raisin_tpu.parallel import multihost
+from raisin_jax.utils.profiling import StageTimer, trace
+from raisin_jax.parallel import multihost
 
 
 def test_stage_timer():
@@ -42,7 +42,7 @@ def test_multihost_helpers_single_process():
 
 
 def test_benchmark_html_page():
-    from raisin_tpu.engine.templates import render_benchmark_page
+    from raisin_jax.engine.templates import render_benchmark_page
 
     html = render_benchmark_page("<table>x</table>", created=123)
     assert "<table>x</table>" in html and 'data-created="123"' in html

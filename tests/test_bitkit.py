@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from raisin_tpu.bitkit import (
+from raisin_jax.bitkit import (
     bits_to_bytes_msb,
     bytes_to_bits_msb,
     pack_prepad_sentinel,

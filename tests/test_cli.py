@@ -2,7 +2,7 @@ import os
 
 import pytest
 
-from raisin_tpu.cli import main, parse_algorithms
+from raisin_jax.cli import main, parse_algorithms
 
 from fixtures import VERSE
 
@@ -95,8 +95,8 @@ def test_container_flag_roundtrip(tmp_path):
 
 
 def test_container_devices_mesh_roundtrip(tmp_path):
-    """-devices=N shards container blocks over a 'data' mesh (VERDICT r1
-    missing #3: the mesh must be reachable from the product surface)."""
+    """-devices=N shards container blocks over a 'data' mesh (the mesh must
+    be reachable from the product surface)."""
     src = _write(tmp_path, "m.txt", VERSE * 40)
     assert main([
         "raisin", str(src), "-container", "-blocksize=2048",

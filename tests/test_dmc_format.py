@@ -1,6 +1,6 @@
 import pytest
 
-from raisin_tpu.formats import dmc_ref as dmc
+from raisin_jax.formats import dmc_ref as dmc
 
 from fixtures import VERSE, random_text
 

@@ -1,7 +1,7 @@
 import pytest
 
-from raisin_tpu.engine.core import CompressedFile, compress_bytes, decompress_bytes
-from raisin_tpu.engine.registry import (
+from raisin_jax.engine.core import CompressedFile, compress_bytes, decompress_bytes
+from raisin_jax.engine.registry import (
     ENGINES,
     SUITES,
     available_backends,

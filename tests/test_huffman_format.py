@@ -1,6 +1,6 @@
 import pytest
 
-from raisin_tpu.formats import huffman_ref as hf
+from raisin_jax.formats import huffman_ref as hf
 
 from fixtures import HELLO, ABC, VERSE, UNICODE_TEXT, random_bytes, random_text
 

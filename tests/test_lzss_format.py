@@ -1,6 +1,6 @@
 import pytest
 
-from raisin_tpu.formats import lzss_ref as lz
+from raisin_jax.formats import lzss_ref as lz
 
 from fixtures import HELLO, ABC, VERSE, random_bytes, random_text
 

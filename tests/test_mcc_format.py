@@ -1,6 +1,6 @@
 import pytest
 
-from raisin_tpu.formats import mcc_ref as mcc
+from raisin_jax.formats import mcc_ref as mcc
 
 from fixtures import HELLO, ABC, VERSE, random_bytes, random_text
 
@@ -48,7 +48,7 @@ def test_token_frequency_ramp():
 
 
 def test_frequency_tie_round_trips():
-    """Adversarial frequency ties (VERDICT r1 weak #7).
+    """Adversarial frequency ties.
 
     Go's unstable sort.Slice (mcc.go:80) may order tied transitions
     differently from our stable sort, so reference-produced files with ties

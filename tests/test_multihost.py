@@ -71,7 +71,7 @@ def test_two_process_distributed_container(tmp_path):
     assert lo0 == 0 and hi0 == lo1 and hi1 == nblocks
 
     # rank-order reassembly == one container; bit-exact round trip
-    from raisin_tpu.parallel import blocks as blk
+    from raisin_jax.parallel import blocks as blk
     from bench import make_corpus
 
     payloads = segs[0]["payloads"] + segs[1]["payloads"]

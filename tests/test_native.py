@@ -2,8 +2,8 @@
 
 import pytest
 
-from raisin_tpu import native
-from raisin_tpu.formats import arithmetic_ref, lzss_ref
+from raisin_jax import native
+from raisin_jax.formats import arithmetic_ref, lzss_ref
 
 from fixtures import HELLO, ABC, VERSE, random_bytes, random_text
 
@@ -56,7 +56,7 @@ def test_native_decompress_rejects_garbage():
 
 
 def test_registered_as_native_backend():
-    from raisin_tpu.engine.registry import available_backends, get_codec
+    from raisin_jax.engine.registry import available_backends, get_codec
 
     assert "native" in available_backends("lzss")
     assert "native" in available_backends("arithmetic")
@@ -66,7 +66,7 @@ def test_registered_as_native_backend():
 
 @pytest.mark.parametrize("payload", CASES)
 def test_native_mcc_matches_oracle(payload):
-    from raisin_tpu.formats import mcc_ref
+    from raisin_jax.formats import mcc_ref
 
     got = native.mcc_compress(payload)
     assert got == mcc_ref.compress(payload)
@@ -91,7 +91,7 @@ def test_native_mcc_rejects_garbage():
 def test_native_dmc_matches_oracle(payload):
     """Native DMC must be byte-exact vs the host oracle, including the
     DmcError cases (NUL whose only stack match is the root; dmc.go:43-51)."""
-    from raisin_tpu.formats import dmc_ref
+    from raisin_jax.formats import dmc_ref
 
     try:
         want = dmc_ref.compress(payload)
@@ -109,17 +109,17 @@ def test_native_dmc_decompress_is_reference_stub():
 
 
 def test_native_dmc_nul_root_raises():
-    from raisin_tpu.formats import dmc_ref
+    from raisin_jax.formats import dmc_ref
 
     with pytest.raises(dmc_ref.DmcError):
         native.dmc_compress(b"\x00")
 
 
 def test_native_dmc_registered():
-    from raisin_tpu.engine.registry import get_codec
+    from raisin_jax.engine.registry import get_codec
 
     codec = get_codec("dmc", backend="native")
-    from raisin_tpu.formats import dmc_ref
+    from raisin_jax.formats import dmc_ref
 
     assert codec.compress(VERSE) == dmc_ref.compress(VERSE)
 
@@ -128,8 +128,8 @@ def test_native_lzss_long_runs_fast_and_exact():
     """Uniform runs used to be O(n * window^2) in the C search (every
     position walked a full same-hash chain); the fused search+commit skips
     consumed positions. Exactness vs the oracle must hold either way."""
-    from raisin_tpu.formats import lzss_ref
-    from raisin_tpu.native import lzss_compress, lzss_decompress
+    from raisin_jax.formats import lzss_ref
+    from raisin_jax.native import lzss_compress, lzss_decompress
 
     # oracle comparison at a size the (quadratic-on-runs) python oracle
     # can handle; the big case asserts round-trip + that C finishes at all

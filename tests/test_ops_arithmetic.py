@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from raisin_tpu.formats import arithmetic_ref as ref
-from raisin_tpu.ops import arithmetic_scan as dev
+from raisin_jax.formats import arithmetic_ref as ref
+from raisin_jax.ops import arithmetic_scan as dev
 
 from fixtures import HELLO, VERSE, random_bytes, random_text
 
@@ -58,7 +58,7 @@ def test_ragged_blocks_match_oracle():
 def test_batched_decode_roundtrip():
     blocks = [random_text(256, seed=50), random_bytes(100, seed=51), VERSE[:512]]
     payloads = [ref.compress(b) for b in blocks]
-    from raisin_tpu.bitkit.packing import unpack_prepad_sentinel
+    from raisin_jax.bitkit.packing import unpack_prepad_sentinel
 
     tails = [
         np.concatenate([unpack_prepad_sentinel(p), np.array([1, 0], dtype=np.uint8)])
@@ -77,7 +77,7 @@ def test_batched_decode_roundtrip():
 
 
 def test_registered_as_device_backend():
-    from raisin_tpu.engine.registry import available_backends, get_codec
+    from raisin_jax.engine.registry import available_backends, get_codec
 
     assert "device" in available_backends("arithmetic")
     codec = get_codec("arithmetic", backend="device")

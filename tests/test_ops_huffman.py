@@ -2,8 +2,8 @@
 
 import pytest
 
-from raisin_tpu.formats import huffman_ref as ref
-from raisin_tpu.ops import huffman_jax as dev
+from raisin_jax.formats import huffman_ref as ref
+from raisin_jax.ops import huffman_jax as dev
 
 from fixtures import HELLO, ABC, VERSE, UNICODE_TEXT, random_bytes, random_text
 
@@ -58,7 +58,7 @@ def test_empty_raises():
 
 
 def test_registered_as_device_backend():
-    from raisin_tpu.engine.registry import available_backends, get_codec
+    from raisin_jax.engine.registry import available_backends, get_codec
 
     assert "device" in available_backends("huffman")
     codec = get_codec("huffman", backend="device")

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from raisin_tpu.formats import lzss_ref as ref
-from raisin_tpu.ops import lzss_jax as dev
+from raisin_jax.formats import lzss_ref as ref
+from raisin_jax.ops import lzss_jax as dev
 
 from fixtures import HELLO, ABC, VERSE, random_bytes, random_text
 
@@ -85,7 +85,7 @@ def test_multiblock_vmap_matches_oracle():
 
 
 def test_registered_as_device_backend():
-    from raisin_tpu.engine.registry import available_backends, get_codec
+    from raisin_jax.engine.registry import available_backends, get_codec
 
     assert "device" in available_backends("lzss")
     codec = get_codec("lzss", backend="device")

@@ -3,12 +3,12 @@
 import jax
 import pytest
 
-from raisin_tpu.parallel import (
+from raisin_jax.parallel import (
     compress_container,
     decompress_container,
     data_mesh,
 )
-from raisin_tpu.parallel.blocks import parse_container
+from raisin_jax.parallel.blocks import parse_container
 
 from fixtures import VERSE, random_bytes, random_text
 
@@ -46,7 +46,7 @@ def test_container_metadata():
 
 def test_container_blocks_are_reference_format():
     # every block payload must be an exact single-stream .rsn encoding
-    from raisin_tpu.formats import arithmetic_ref
+    from raisin_jax.formats import arithmetic_ref
 
     data = random_text(5_000, seed=82)
     c = compress_container(data, ("arithmetic",), block_size=2048)
@@ -86,7 +86,7 @@ def test_container_lzss_huffman_roundtrip():
 
 def test_container_huffman_blocks_are_reference_format():
     # device-batched huffman payloads must be byte-identical to the oracle
-    from raisin_tpu.formats import huffman_ref
+    from raisin_jax.formats import huffman_ref
 
     data = random_text(6_000, seed=86)
     c = compress_container(data, ("huffman",), block_size=2048)
@@ -108,7 +108,7 @@ def test_container_huffman_non_ascii_fallback():
 def test_container_window_parameter():
     # smaller windows produce valid (reference-decodable) containers and
     # match the oracle at the same window
-    from raisin_tpu.formats import arithmetic_ref, lzss_ref
+    from raisin_jax.formats import arithmetic_ref, lzss_ref
 
     data = random_text(9_000, seed=87)
     c = compress_container(data, ("lzss", "arithmetic"), block_size=4096, window=1024)
@@ -136,26 +136,15 @@ def test_container_binary_data_paths():
         decompress_container(c)
 
 
-def test_escape_clean_and_raw_batch_view():
-    """Helpers behind the device-side escape map (escape-clean fast path)."""
-    import numpy as np
+def test_dispatch_loop_matches_one_dispatch(monkeypatch):
+    """Inputs past DISPATCH_BYTES run as a loop of dispatches; blocks are
+    independent, so the container is the same byte for byte."""
+    from raisin_jax.parallel import blocks as blk
 
-    from raisin_tpu.formats.lzss_ref import encode_opening_symbols
-    from raisin_tpu.parallel import blocks as blk
-
-    assert blk._escape_clean([b"hello < world", b"abc"])
-    assert not blk._escape_clean([b"he\xffllo"])
-    assert not blk._escape_clean([b"ok", b"nope\x5c"])
-
-    # for clean data the escape pre-pass IS the pure byte map the device
-    # applies (0x3C -> 0xFF, unchanged length)
-    b = b"a<b<c plain text, no escapes"
-    mapped = bytes(0xFF if x == 0x3C else x for x in b)
-    assert encode_opening_symbols(b) == mapped
-
-    whole = bytes(range(48, 58)) * 1024  # 10240 bytes
-    x, lengths = blk._raw_batch_view(whole, lo_block=2, nb=3, bs=1024)
-    assert x.shape == (3, 1024) and (lengths == 1024).all()
-    assert x.tobytes() == whole[2048 : 2048 + 3 * 1024]
-    # zero-copy: the view shares the buffer
-    assert x.base is not None
+    data = random_text(9_000, seed=88)
+    want = compress_container(data, ("lzss", "arithmetic"), block_size=1024)
+    monkeypatch.setattr(blk, "DISPATCH_BYTES", 3 * 1024)
+    assert blk._dispatches(9, 1024, None) == [(0, 3), (3, 6), (6, 9)]
+    got = compress_container(data, ("lzss", "arithmetic"), block_size=1024)
+    assert got == want
+    assert decompress_container(got) == data

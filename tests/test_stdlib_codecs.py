@@ -1,6 +1,6 @@
 import pytest
 
-from raisin_tpu.formats import stdlib_codecs as sc
+from raisin_jax.formats import stdlib_codecs as sc
 
 from fixtures import HELLO, VERSE, random_bytes, random_text
 

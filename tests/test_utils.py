@@ -1,4 +1,4 @@
-from raisin_tpu.utils import byte_count_si
+from raisin_jax.utils import byte_count_si
 
 
 def test_byte_count_si():
